@@ -4,12 +4,7 @@ from isaklm_raytracer_tpu.accel.traverse import (
     nearest_hit_brute,
 )
 from isaklm_raytracer_tpu.accel.kdtree import build_kd_tree
-from isaklm_raytracer_tpu.accel.cluster import (
-    ClusterBVH,
-    build_cluster_bvh,
-    cluster_order,
-    morton_order,
-)
+from isaklm_raytracer_tpu.accel.cluster import cluster_order, morton_order
 from isaklm_raytracer_tpu.accel.wavefront import (
     WavefrontKD,
     build_wavefront_kd,
@@ -17,37 +12,28 @@ from isaklm_raytracer_tpu.accel.wavefront import (
 )
 
 
-KD_BUILD_LIMIT = 300_000  # above this, skip the host KD build by default
-
-
 def prepare_scene(scene, max_depth: int = 19, leaf_size: int = 7,
-                  leaf_width: int = 8, build_kd: bool | None = None):
+                  leaf_width: int = 8):
     """Build every acceleration structure for a Scene.
 
-    1. Renumbers the triangles spatially (accel.cluster.cluster_order:
-       median-split partition — measured ~20% faster than Morton slices at
-       hero scale, scripts/hero_sweep.py) so the Pallas cluster kernel can
-       reconstruct triangle ids as c*128 + lane; all per-triangle arrays
-       and the light list are permuted consistently, so ids stay coherent
-       across the whole framework.
-    2. Builds the cluster BVH (Pallas packet kernel, the production TPU
-       intersector).
-    3. Builds the KD tree + batched lockstep traversal layout (the pure-XLA
-       fallback used on CPU / for the multi-chip dryrun, and the parity
-       reference for the reference's KD semantics, create_kd_tree.cuh).
-       For scenes above KD_BUILD_LIMIT triangles the KD build is skipped by
-       default (build_kd=None -> auto): the cluster BVH is the production
-       path there and the host-side KD build would dominate startup.
+    1. Renumbers the triangles spatially (accel.cluster.cluster_order);
+       all per-triangle arrays and the light list are permuted
+       consistently, so ids stay coherent across the whole framework.
+    2. Packs the per-triangle shading rows (Scene.shade_table).
+    3. Builds the KD tree (create_kd_tree.cuh) and its chunked leaf layout
+       (accel.wavefront.WavefrontKD), which every KD intersector walks. The
+       tree is built at every scene size: the native builder takes seconds
+       even at the 2M-triangle hero size, and without it a trace falls to
+       brute force.
     """
+    import jax
+    import jax.numpy as jnp
     import numpy as np
 
     verts = np.asarray(scene.vertices)
     order = cluster_order(verts)
     inv = np.empty_like(order)
     inv[order] = np.arange(order.size)
-
-    import jax
-    import jax.numpy as jnp
 
     lights = np.sort(inv[np.asarray(scene.light_indices)]).astype(np.int32)
     scene = scene.replace(
@@ -59,44 +45,15 @@ def prepare_scene(scene, max_depth: int = 19, leaf_size: int = 7,
     )
 
     verts = verts[order]
-    from isaklm_raytracer_tpu.accel.cluster import CLUSTER_PAD, CLUSTER_WIDTH
-    from isaklm_raytracer_tpu.kernels.intersect import VMEM_TABLE_LIMIT
-
-    num_clusters = -(-max(1, -(-verts.shape[0] // CLUSTER_WIDTH))
-                     // CLUSTER_PAD) * CLUSTER_PAD
-    big = num_clusters * 16 * CLUSTER_WIDTH * 4 > VMEM_TABLE_LIMIT
-    # Big scene -> the v3/v4 blocked HBM kernels need the blocked tables
-    # (header + blk_branch-cluster DMA blocks); built from numpy
-    # intermediates so nothing is read back from the device. Default DMA
-    # block = 128 clusters (the header-tile lane maximum): under the v4
-    # per-ray kernel, halving the block count keeps shrinking the
-    # needed-union visit count faster than it grows per-visit cost
-    # (round-5 sweeps: 32 -> 64 -> 128 each won; interleaved A/B b64 vs
-    # b128 on the hero integrator: 1.24 vs 1.18 s/sample. Round 4's
-    # global-tmax kernel preferred 32). ISAKLM_BLK_BRANCH overrides.
-    import os
-
-    blk_branch = int(os.environ.get("ISAKLM_BLK_BRANCH", "128"))
-    cbvh = build_cluster_bvh(
-        verts,
-        blk_branch=blk_branch if big else None,
-        mxu_tiles=not big,
-    )
-
     num = verts.shape[0]
     table = np.zeros((num, 32), np.float32)
     table[:, 0:9] = verts.reshape(num, 9)
     table[:, 9:18] = np.asarray(scene.normals).reshape(num, 9)
     table[:, 18:24] = np.asarray(scene.uvs).reshape(num, 6)
     table[:, 24] = np.asarray(scene.mat_id)
-    scene = scene.replace(shade_table=jnp.asarray(table))
-    if build_kd is None:
-        build_kd = verts.shape[0] <= KD_BUILD_LIMIT
-    if build_kd:
-        kd = build_kd_tree(verts, max_depth, leaf_size)
-        wkd = build_wavefront_kd(kd, verts, leaf_width)
-        scene = scene.replace(kd=kd, wkd=wkd)
-    scene = scene.replace(cbvh=cbvh)
+    kd = build_kd_tree(verts, max_depth, leaf_size)
+    wkd = build_wavefront_kd(kd, verts, leaf_width)
+    scene = scene.replace(shade_table=table, kd=kd, wkd=wkd)
     # ONE host->device conversion for the finished scene (host-side numpy
     # leaves from build_scene; see scene.types.build_scene).
     return jax.tree.map(
@@ -105,10 +62,8 @@ def prepare_scene(scene, max_depth: int = 19, leaf_size: int = 7,
 
 
 __all__ = [
-    "ClusterBVH",
     "HitAttributes",
     "WavefrontKD",
-    "build_cluster_bvh",
     "build_kd_tree",
     "build_wavefront_kd",
     "cluster_order",

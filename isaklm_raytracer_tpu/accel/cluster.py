@@ -1,105 +1,17 @@
-"""Cluster BVH: the TPU-native acceleration structure for the Pallas path.
+"""Spatial renumbering of a scene's triangles.
 
-Instead of translating the reference's per-ray stackful KD walk
-(trace_ray.cuh:244-318) -- whose per-ray gathers/scatters are latency-bound
-on vector hardware -- triangles are spatially renumbered (any permutation
-works; production uses `cluster_order` median splits, `morton_order` is the
-simpler alternative) and packed into fixed-width CLUSTERS of 128 (one VPU
-lane each). Each cluster stores a compact
-(16, 128) f32 constant block (one padded VREG tile) holding everything the
-intersection test needs, precomputed:
-
-  rows 0-2   geometric normal n = cross(e1, e2)          (unnormalised)
-  rows 3-5   edge e1 = p2 - p1
-  rows 6-8   edge e2 = p3 - p1
-  row  9     n . p1        (plane offset)
-  row 10     p1 . e1
-  row 11     p1 . e2
-  row 12     d11 / den     (Cramer barycentric coefficients,
-  row 13     d01 / den      den = d00*d11 - d01^2;
-  row 14     d00 / den      trace_ray.cuh:48-71 folded into constants)
-  row 15     lanes 0-5 = the CLUSTER's bbox (minxyz, maxxyz) -- cluster-level
-             culling data rides inside the block itself, so the kernels read
-             it with scalar loads and no separate bbox table is needed
-
-so a cluster visit in the kernel is ~40 broadcast FMAs on (B, 128) tiles
-and zero gathers. This is a partition (no straddler duplication, unlike
-create_kd_tree.cuh:176-218): correctness comes from taking the min hit over
-every cluster whose bbox the ray pierces, so no ordering or early-out
-bookkeeping is needed.
+`accel.prepare_scene` permutes every per-triangle array (and the light
+list) by `cluster_order`, so that triangles close in space get close ids.
+The golden images in tests/golden/ were rendered with this numbering: the
+nearest-hit tie rule (lowest triangle id wins) makes the permutation part
+of the rendered result.
 """
 
 from __future__ import annotations
 
-import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
-CLUSTER_WIDTH = 128  # triangles per cluster = one lane dim
-OCT_BRANCH = 8  # clusters per oct (the DMA unit of the v2 big-scene kernel)
-# Cluster-count padding granularity: every table builder below divides the
-# padded count (oct/blk grouping, bbox 128-lane padding). A 64-multiple
-# keeps all power-of-two branches <= 64 valid without per-layout repads.
-# (Historic name SUP_BRANCH: a supercluster bbox level was built over this
-# granularity through round 4 but never consumed by any kernel -- deleted
-# in round 5, VERDICT r4 missing #4.)
-CLUSTER_PAD = 64
-
-
-@struct.dataclass
-class ClusterBVH:
-    """Two-level cluster hierarchy consumed by kernels/intersect.py.
-
-    Built for a scene whose triangles are ALREADY spatially renumbered
-    (`cluster_order` in production, `morton_order` also valid -- the real
-    invariant is just that the SAME permutation is applied to every
-    per-triangle scene array, see accel.prepare_scene): cluster c holds
-    exactly triangles [c*128, (c+1)*128), so the kernel reconstructs global
-    triangle ids as c*128 + lane with no id table and no gathers.
-    """
-
-    oct_bbox: jnp.ndarray  # (C/8, 8) f32 -- merged boxes of 8-cluster octs
-    clu_bbox: jnp.ndarray  # (C, 8) f32
-    tri_const: jnp.ndarray  # (C, 16, 128) f32 (see module docstring)
-    # Component-major (transposed) box tables for the kernels' DENSE cull
-    # phase: rows 0-5 = min xyz / max xyz with boxes along the lane axis
-    # (padded to a 128 multiple), row 6 = validity flag (0.0 kills padding
-    # lanes -- an inverted sentinel box does NOT fail the slab test once
-    # +-3e38 arithmetic saturates to inf).
-    oct_bbox_t: jnp.ndarray = None  # (8, ceil(C/8 -> 128-pad)) f32
-    clu_bbox_t: jnp.ndarray = None  # (8, 128-pad of C) f32
-    num_triangles: int = struct.field(pytree_node=False, default=0)
-    # BLOCKED layout for the v3 HBM kernel (kernels/intersect.py
-    # nearest_hit_cluster_blk): per DMA block, one (16, 128) HEADER tile
-    # (rows 0-5 = component-major cluster bboxes, lane k = cluster k of the
-    # block; row 6 = cluster validity) followed by the block's `blk_branch`
-    # cluster constant tiles. The header lets the kernel cull a whole
-    # block's clusters in ONE dense VPU pass instead of 6 scalar loads per
-    # cluster. Built on demand by `with_blocks`.
-    blk_const: jnp.ndarray = None  # (NB, blk_branch + 1, 16, 128) f32
-    blk_bbox_t: jnp.ndarray = None  # (8, 128-pad of NB) f32
-    blk_branch: int = struct.field(pytree_node=False, default=0)
-    # MXU-layout blocks (kernels/intersect.py nearest_hit_cluster_blk with
-    # mxu=True): per block, one header tile then TWO (16, 128) tiles per
-    # cluster -- W1 = [n-weights (8 rows); e1-weights (8 rows)], W2 =
-    # [e2-weights (8 rows); aux (8 rows: np1, p1e1, p1e2, ca, cb, cc, 0, 0)]
-    # -- so the kernel computes all six ray/tri dot products as three
-    # (2B, 8) @ (8, 128) matmuls on the MXU (rows 0..B-1 = direction dots,
-    # B..2B-1 = origin dots) and keeps only the cheap VPU tail.
-    mxu_const: jnp.ndarray = None  # (NB, 2*blk_branch + 1, 16, 128) f32
-    mxu_branch: int = struct.field(pytree_node=False, default=0)
-    # Per-cluster MXU tile pairs for the VMEM flat kernel (tiny scenes):
-    # [c, 0] = W1, [c, 1] = W2 (same tile contents as mxu_const, no
-    # header). Built by with_mxu_tiles.
-    mxu_tiles: jnp.ndarray = None  # (C, 2, 16, 128) f32
-
-    @property
-    def num_clusters(self) -> int:
-        return self.tri_const.shape[0]
-
-    @property
-    def vmem_bytes(self) -> int:
-        return self.tri_const.size * 4
+CLUSTER_WIDTH = 128  # triangles per leaf of the median-split partition
 
 
 def _morton3(x: np.ndarray, y: np.ndarray, z: np.ndarray) -> np.ndarray:
@@ -120,8 +32,9 @@ def morton_order(vertices: np.ndarray) -> np.ndarray:
     """Morton-sort permutation of triangles by quantised centroid.
 
     Returns `order` (T,) int64 such that vertices[order] is Morton-ordered.
-    accel.prepare_scene applies it to ALL per-triangle scene arrays so that
-    triangle ids stay consistent everywhere.
+    The simpler alternative to `cluster_order`; whichever permutation is
+    used must be applied to ALL per-triangle scene arrays so that triangle
+    ids stay consistent everywhere.
     """
     vertices = np.asarray(vertices, np.float32)
     centroids = vertices.mean(axis=1)  # (T, 3)
@@ -132,19 +45,17 @@ def morton_order(vertices: np.ndarray) -> np.ndarray:
 
 
 def cluster_order(vertices: np.ndarray) -> np.ndarray:
-    """Spatial median-split permutation: tighter clusters than Morton slices.
+    """Spatial median-split permutation: tighter groups than Morton slices.
 
     Recursive longest-axis median partition of the triangle centroids,
     with the left split size rounded up to a CLUSTER_WIDTH multiple so
     every leaf except the global tail holds exactly CLUSTER_WIDTH
-    triangles; leaves are emitted in DFS order, so consecutive clusters
-    (and therefore the 8-cluster DMA octs) are sibling subtrees with
-    compact merged bboxes. On the 2M-triangle hero scene this cuts the
-    HBM kernel's oct visits per packet ~2x vs `morton_order` (Morton
-    slices straddle code-curve jumps; median splits cannot).
+    triangles; leaves are emitted in DFS order, so consecutive leaves are
+    sibling subtrees with compact merged bboxes (Morton slices straddle
+    code-curve jumps; median splits cannot).
 
     Drop-in replacement for `morton_order`: returns `order` (T,) such
-    that vertices[order] is cluster-packed.
+    that vertices[order] is spatially packed.
     """
     verts = np.asarray(vertices, np.float32)
     cent = verts.mean(axis=1)  # (T, 3)
@@ -166,265 +77,3 @@ def cluster_order(vertices: np.ndarray) -> np.ndarray:
         stack.append(idx[part[left:]])  # right pushed first ->
         stack.append(idx[part[:left]])  # left popped/emitted first (DFS)
     return out
-
-
-def with_oct_branch(cbvh: ClusterBVH, branch: int) -> ClusterBVH:
-    """Rebuild the oct tables for a different DMA block size (clusters per
-    oct). `branch` must divide num_clusters (always true for powers of two
-    <= CLUSTER_PAD: the cluster count is padded to a CLUSTER_PAD multiple).
-    Used by the kernel-perf sweep; the kernels take the matching
-    `oct_branch` static argument."""
-    clu_bbox = np.asarray(cbvh.clu_bbox)
-    num_clusters = clu_bbox.shape[0]
-    assert num_clusters % branch == 0, (num_clusters, branch)
-    has_any = clu_bbox[:, 0] <= clu_bbox[:, 3]  # non-inverted box
-    num_oct = num_clusters // branch
-    og = clu_bbox.reshape(num_oct, branch, 8)
-    oct_bbox = np.zeros((num_oct, 8), np.float32)
-    oct_bbox[:, 0:3] = og[:, :, 0:3].min(axis=1)
-    oct_bbox[:, 3:6] = og[:, :, 3:6].max(axis=1)
-    oct_valid = has_any.reshape(num_oct, branch).any(axis=1)
-    return cbvh.replace(
-        oct_bbox=jnp.asarray(oct_bbox),
-        oct_bbox_t=jnp.asarray(_bbox_t(oct_bbox, oct_valid)),
-    )
-
-
-def _build_blocks_np(tri_const: np.ndarray, clu_bbox: np.ndarray, branch: int):
-    """Numpy core of the blocked HBM layout (see ClusterBVH.blk_const)."""
-    assert branch <= CLUSTER_WIDTH
-    num_clusters = clu_bbox.shape[0]
-    if num_clusters % branch:  # pad with inverted-box (always-culled) clusters
-        pad = branch - num_clusters % branch
-        tri_const = np.concatenate(
-            [tri_const, np.zeros((pad,) + tri_const.shape[1:], np.float32)]
-        )
-        pad_box = np.zeros((pad, 8), np.float32)
-        pad_box[:, 0:3] = 3e38
-        pad_box[:, 3:6] = -3e38
-        clu_bbox = np.concatenate([clu_bbox, pad_box])
-        num_clusters += pad
-    num_blk = num_clusters // branch
-    has_any = clu_bbox[:, 0] <= clu_bbox[:, 3]
-
-    blk = np.zeros((num_blk, branch + 1, 16, CLUSTER_WIDTH), np.float32)
-    hdr_box = clu_bbox.reshape(num_blk, branch, 8)
-    blk[:, 0, 0:6, :branch] = np.moveaxis(hdr_box[:, :, 0:6], 1, 2)
-    blk[:, 0, 6, :branch] = has_any.reshape(num_blk, branch).astype(np.float32)
-    blk[:, 1:] = tri_const.reshape(num_blk, branch, 16, CLUSTER_WIDTH)
-
-    blk_bbox = np.zeros((num_blk, 8), np.float32)
-    blk_bbox[:, 0:3] = np.where(
-        has_any.reshape(num_blk, branch, 1), hdr_box[:, :, 0:3], 3e38
-    ).min(axis=1)
-    blk_bbox[:, 3:6] = np.where(
-        has_any.reshape(num_blk, branch, 1), hdr_box[:, :, 3:6], -3e38
-    ).max(axis=1)
-    blk_valid = has_any.reshape(num_blk, branch).any(axis=1)
-    return blk, _bbox_t(blk_bbox, blk_valid)
-
-
-def _build_mxu_blocks_np(tri_const: np.ndarray, clu_bbox: np.ndarray,
-                         branch: int):
-    """Numpy core of the MXU block layout (see ClusterBVH.mxu_const)."""
-    assert branch <= CLUSTER_WIDTH
-    num_clusters = clu_bbox.shape[0]
-    if num_clusters % branch:
-        pad = branch - num_clusters % branch
-        tri_const = np.concatenate(
-            [tri_const, np.zeros((pad,) + tri_const.shape[1:], np.float32)]
-        )
-        pad_box = np.zeros((pad, 8), np.float32)
-        pad_box[:, 0:3] = 3e38
-        pad_box[:, 3:6] = -3e38
-        clu_bbox = np.concatenate([clu_bbox, pad_box])
-        num_clusters += pad
-    num_blk = num_clusters // branch
-    has_any = clu_bbox[:, 0] <= clu_bbox[:, 3]
-
-    blk = np.zeros((num_blk, 2 * branch + 1, 16, CLUSTER_WIDTH), np.float32)
-    hdr_box = clu_bbox.reshape(num_blk, branch, 8)
-    blk[:, 0, 0:6, :branch] = np.moveaxis(hdr_box[:, :, 0:6], 1, 2)
-    blk[:, 0, 6, :branch] = has_any.reshape(num_blk, branch).astype(np.float32)
-
-    tc = tri_const.reshape(num_blk, branch, 16, CLUSTER_WIDTH)
-    # W1 = [n-weights rows 0-2; e1-weights rows 8-10], W2 = [e2-weights
-    # rows 0-2; aux rows 8-13 = np1 p1e1 p1e2 ca cb cc]
-    blk[:, 1::2, 0:3] = tc[:, :, 0:3]
-    blk[:, 1::2, 8:11] = tc[:, :, 3:6]
-    blk[:, 2::2, 0:3] = tc[:, :, 6:9]
-    blk[:, 2::2, 8:14] = tc[:, :, 9:15]
-
-    blk_bbox = np.zeros((num_blk, 8), np.float32)
-    blk_bbox[:, 0:3] = np.where(
-        has_any.reshape(num_blk, branch, 1), hdr_box[:, :, 0:3], 3e38
-    ).min(axis=1)
-    blk_bbox[:, 3:6] = np.where(
-        has_any.reshape(num_blk, branch, 1), hdr_box[:, :, 3:6], -3e38
-    ).max(axis=1)
-    blk_valid = has_any.reshape(num_blk, branch).any(axis=1)
-    return blk, _bbox_t(blk_bbox, blk_valid)
-
-
-def with_mxu_tiles(cbvh: ClusterBVH) -> ClusterBVH:
-    """Attach per-cluster MXU tile pairs (flat VMEM kernel layout)."""
-    tc = np.asarray(cbvh.tri_const)
-    num_clusters = tc.shape[0]
-    tiles = np.zeros((num_clusters, 2, 16, CLUSTER_WIDTH), np.float32)
-    tiles[:, 0, 0:3] = tc[:, 0:3]    # W1: n-weights
-    tiles[:, 0, 8:11] = tc[:, 3:6]   # W1: e1-weights
-    tiles[:, 1, 0:3] = tc[:, 6:9]    # W2: e2-weights
-    tiles[:, 1, 8:14] = tc[:, 9:15]  # W2: aux np1 p1e1 p1e2 ca cb cc
-    return cbvh.replace(mxu_tiles=jnp.asarray(tiles))
-
-
-def with_mxu_blocks(cbvh: ClusterBVH, branch: int = 32) -> ClusterBVH:
-    """Attach the MXU block layout (see ClusterBVH.mxu_const). Also sets
-    blk_bbox_t (the dense-phase table is shared with the v3 layout)."""
-    blk, blk_bbox_t = _build_mxu_blocks_np(
-        np.asarray(cbvh.tri_const), np.asarray(cbvh.clu_bbox), branch
-    )
-    return cbvh.replace(
-        mxu_const=jnp.asarray(blk),
-        blk_bbox_t=jnp.asarray(blk_bbox_t),
-        mxu_branch=branch,
-    )
-
-
-def with_blocks(cbvh: ClusterBVH, branch: int = 32) -> ClusterBVH:
-    """Attach the blocked HBM layout (see ClusterBVH.blk_const): groups of
-    `branch` consecutive clusters, each prefixed by a header tile carrying
-    the component-major cluster bboxes, so the v3 kernel culls a landed
-    block's clusters vectorized. `branch` <= 128 (header lanes) and must
-    divide the (CLUSTER_PAD-padded) cluster count.
-
-    NOTE: reads tri_const back to host -- at hero scale prefer
-    build_cluster_bvh(verts, blk_branch=...) which builds the blocks from
-    the numpy intermediates before anything touches the device."""
-    blk, blk_bbox_t = _build_blocks_np(
-        np.asarray(cbvh.tri_const), np.asarray(cbvh.clu_bbox), branch
-    )
-    return cbvh.replace(
-        blk_const=jnp.asarray(blk),
-        blk_bbox_t=jnp.asarray(blk_bbox_t),
-        blk_branch=branch,
-    )
-
-
-def _bbox_t(bbox: np.ndarray, valid: np.ndarray) -> np.ndarray:
-    """Component-major 128-padded box table (see ClusterBVH.oct_bbox_t)."""
-    n = bbox.shape[0]
-    n_pad = -(-n // 128) * 128
-    out = np.zeros((8, n_pad), np.float32)
-    out[0:6, :n] = bbox[:, 0:6].T
-    out[6, :n] = valid.astype(np.float32)
-    return out
-
-
-def build_cluster_bvh(
-    vertices: np.ndarray,
-    blk_branch: int | None = None,
-    mxu_branch: int | None = None,
-    mxu_tiles: bool = False,
-) -> ClusterBVH:
-    """Host-side build over ALREADY spatially renumbered triangles.
-
-    vertices: (T, 3, 3) float32 triangle vertex positions, in the order
-    produced by `cluster_order` (or `morton_order`); cluster c = triangles
-    [c*128, (c+1)*128). `blk_branch` / `mxu_branch` / `mxu_tiles`
-    additionally build the blocked / MXU HBM layouts from the numpy
-    intermediates (no device readback -- prefer these over the
-    with_* helpers when the arrays would otherwise live on a device).
-    """
-    vertices = np.asarray(vertices, np.float32)
-    num_tris = vertices.shape[0]
-
-    num_clusters = max(1, -(-num_tris // CLUSTER_WIDTH))
-    num_clusters = -(-num_clusters // CLUSTER_PAD) * CLUSTER_PAD
-
-    tri_ids = np.full(num_clusters * CLUSTER_WIDTH, -1, np.int64)
-    tri_ids[:num_tris] = np.arange(num_tris)
-    tri_ids = tri_ids.reshape(num_clusters, CLUSTER_WIDTH)
-
-    # Per-slot triangle data (degenerate zeros in padding -> the kernel's
-    # ddn == 0 / NaN rejections kill pad slots with no extra masking).
-    safe = np.maximum(tri_ids, 0)
-    tri = vertices[safe]  # (C, W, 3, 3)
-    pad_mask = (tri_ids < 0)[..., None]
-    p1 = np.where(pad_mask, 0.0, tri[:, :, 0])
-    e1 = np.where(pad_mask, 0.0, tri[:, :, 1] - tri[:, :, 0])
-    e2 = np.where(pad_mask, 0.0, tri[:, :, 2] - tri[:, :, 0])
-    n = np.cross(e1, e2)
-
-    d00 = np.sum(e1 * e1, axis=-1)
-    d01 = np.sum(e1 * e2, axis=-1)
-    d11 = np.sum(e2 * e2, axis=-1)
-    den = d00 * d11 - d01 * d01
-    with np.errstate(divide="ignore", invalid="ignore"):
-        inv_den = np.where(den != 0.0, 1.0 / den, 0.0)
-
-    tri_const = np.zeros((num_clusters, 16, CLUSTER_WIDTH), np.float32)
-    tri_const[:, 0:3] = np.moveaxis(n, -1, 1)
-    tri_const[:, 3:6] = np.moveaxis(e1, -1, 1)
-    tri_const[:, 6:9] = np.moveaxis(e2, -1, 1)
-    tri_const[:, 9] = np.sum(n * p1, axis=-1)
-    tri_const[:, 10] = np.sum(p1 * e1, axis=-1)
-    tri_const[:, 11] = np.sum(p1 * e2, axis=-1)
-    tri_const[:, 12] = d11 * inv_den
-    tri_const[:, 13] = d01 * inv_den
-    tri_const[:, 14] = d00 * inv_den
-
-    # Bounding boxes; empty/pad clusters get an inverted box so the slab
-    # test always culls them.
-    clu_bbox = np.zeros((num_clusters, 8), np.float32)
-    clu_bbox[:, 0:3] = 3e38
-    clu_bbox[:, 3:6] = -3e38
-    valid_slot = tri_ids >= 0  # (C, W)
-    vmin = np.where(valid_slot[..., None, None], tri, 3e38).min(axis=(1, 2))
-    vmax = np.where(valid_slot[..., None, None], tri, -3e38).max(axis=(1, 2))
-    has_any = valid_slot.any(axis=1)
-    clu_bbox[has_any, 0:3] = vmin[has_any]
-    clu_bbox[has_any, 3:6] = vmax[has_any]
-
-    tri_const[:, 15, 0:8] = clu_bbox
-
-    num_oct = num_clusters // OCT_BRANCH
-    oct_bbox = np.zeros((num_oct, 8), np.float32)
-    og = clu_bbox.reshape(num_oct, OCT_BRANCH, 8)
-    oct_bbox[:, 0:3] = og[:, :, 0:3].min(axis=1)
-    oct_bbox[:, 3:6] = og[:, :, 3:6].max(axis=1)
-
-    oct_valid = has_any.reshape(num_oct, OCT_BRANCH).any(axis=1)
-
-    blk = blk_bbox_t = None
-    if blk_branch is not None:
-        blk, blk_bbox_t = _build_blocks_np(tri_const, clu_bbox, blk_branch)
-    mxu = None
-    if mxu_branch is not None:
-        mxu, mxu_bbox_t = _build_mxu_blocks_np(tri_const, clu_bbox, mxu_branch)
-        if blk_bbox_t is None:
-            blk_bbox_t = mxu_bbox_t
-    tiles = None
-    if mxu_tiles:
-        tiles = np.zeros(
-            (num_clusters, 2, 16, CLUSTER_WIDTH), np.float32
-        )
-        tiles[:, 0, 0:3] = tri_const[:, 0:3]
-        tiles[:, 0, 8:11] = tri_const[:, 3:6]
-        tiles[:, 1, 0:3] = tri_const[:, 6:9]
-        tiles[:, 1, 8:14] = tri_const[:, 9:15]
-
-    return ClusterBVH(
-        oct_bbox=jnp.asarray(oct_bbox),
-        clu_bbox=jnp.asarray(clu_bbox),
-        tri_const=jnp.asarray(tri_const),
-        oct_bbox_t=jnp.asarray(_bbox_t(oct_bbox, oct_valid)),
-        clu_bbox_t=jnp.asarray(_bbox_t(clu_bbox, has_any)),
-        num_triangles=num_tris,
-        blk_const=None if blk is None else jnp.asarray(blk),
-        blk_bbox_t=None if blk_bbox_t is None else jnp.asarray(blk_bbox_t),
-        blk_branch=0 if blk_branch is None else blk_branch,
-        mxu_const=None if mxu is None else jnp.asarray(mxu),
-        mxu_branch=0 if mxu_branch is None else mxu_branch,
-        mxu_tiles=None if tiles is None else jnp.asarray(tiles),
-    )

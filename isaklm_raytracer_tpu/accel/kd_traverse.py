@@ -19,9 +19,9 @@ Semantics preserved:
   - fixed stack of `max_depth` entries (trace_ray.cuh:246-248).
 
 Outputs are detached (int topology); differentiable shading reconstruction
-happens in `hit_attributes`. The Pallas wavefront kernel in kernels/ is the
-performance path; this is the portable/correctness path and the oracle for
-it.
+happens in `hit_attributes`. The GPU kernel (accel/kd_kernel.py) and the
+batched XLA walk (accel/wavefront.py) are the performance paths; this is
+the per-ray reference walk they are tested against.
 """
 
 from __future__ import annotations
@@ -209,8 +209,8 @@ def nearest_hit_kd(
     o, d: (R, 3). Returns (t (R,), idx (R,) int32, hit (R,) bool), detached.
     `active` masks lanes to an immediate miss.
     
-    `t_max` is accepted for interface parity with the Pallas kernels (a
-    search-window performance hint, integrator/nee.py) and ignored here;
+    `t_max` is accepted for interface parity with the other intersectors
+    (a search-window performance hint, integrator/nee.py) and ignored here;
     visibility results are identical either way.
     """
     # asarray: vertices may be host numpy on an unprepared scene

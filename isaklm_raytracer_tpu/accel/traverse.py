@@ -21,8 +21,8 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
+from isaklm_raytracer_tpu import pytree
 from isaklm_raytracer_tpu.math import transforms
 from isaklm_raytracer_tpu.scene.types import Scene, sample_texture
 
@@ -126,7 +126,7 @@ def nearest_hit_brute(
     )
 
 
-@struct.dataclass
+@pytree.dataclass
 class HitAttributes:
     """Differentiable hit record (reference Sample, trace_ray.cuh:17-29)."""
 
@@ -159,8 +159,8 @@ def hit_attributes(
     # scene (build_scene defers the device transfer); indexing numpy with a
     # tracer is an error, and asarray is a no-op on device arrays/tracers.
     if scene.shade_table is not None:
-        # One contiguous row gather for all per-triangle data (TPU gathers
-        # are per-row latency-bound; five strided gathers cost ~5x this).
+        # One contiguous row gather for all per-triangle data instead of
+        # five strided ones.
         row = jnp.asarray(scene.shade_table)[safe_idx]  # (R, 32)
         p1, p2, p3 = row[:, 0:3], row[:, 3:6], row[:, 6:9]
         nrm1, nrm2, nrm3 = row[:, 9:12], row[:, 12:15], row[:, 15:18]

@@ -1,14 +1,15 @@
-"""Batched lockstep KD traversal -- the TPU-native intersector.
+"""Batched lockstep KD traversal in plain XLA -- the intersector off the GPU.
 
 The reference's per-thread stackful walk (trace_ray.cuh:244-318) maps badly
-onto vector hardware if transliterated per ray (scalar gathers inside a
-vmapped while_loop are latency-bound). This module re-architects it
-TPU-first while preserving the exact hit semantics:
+onto array programs if transliterated per ray (scalar gathers inside a
+vmapped while_loop are latency-bound). This module re-architects it for
+whole-array execution while preserving the exact hit semantics (the GPU
+runs the same walk per ray in one kernel, accel/kd_kernel.py):
 
   - leaf triangle lists are re-laid out as FIXED-SIZE chunks
     (chunk_tri_data: (n_chunks, L, 9) with p1|e1|e2 per slot, -1-padded
     ids), so a leaf visit is ONE contiguous-row gather plus an (R, L)
-    vectorized intersection -- VPU work, no ragged loops;
+    vectorized intersection -- no ragged loops;
   - oversized depth-capped leaves become chunk CHAINS via chunk_next;
   - all rays advance in lockstep through a single masked state machine
     (descend / scan / pop fused into one lax.while_loop iteration), so
@@ -28,14 +29,14 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
+from isaklm_raytracer_tpu import pytree
 from isaklm_raytracer_tpu.scene.types import KDTreeArrays
 
 _INF = jnp.float32(jnp.inf)
 
 
-@struct.dataclass
+@pytree.dataclass
 class WavefrontKD:
     """KD tree re-laid out for batched traversal."""
 
@@ -52,8 +53,8 @@ class WavefrontKD:
     chunk_data: jnp.ndarray  # (C, L, 9) p1 | e1 | e2
     bbox_min: jnp.ndarray
     bbox_max: jnp.ndarray
-    max_depth: int = struct.field(pytree_node=False, default=19)
-    leaf_width: int = struct.field(pytree_node=False, default=8)
+    max_depth: int = pytree.field(pytree_node=False, default=19)
+    leaf_width: int = pytree.field(pytree_node=False, default=8)
 
 
 def build_wavefront_kd(
@@ -176,9 +177,9 @@ def nearest_hit_wavefront(
     inactive lanes report a miss and cost no iterations (the wavefront
     integrator passes its live-path mask so late bounces converge fast).
     
-    `t_max` is accepted for interface parity with the Pallas kernels (a
-    search-window performance hint, integrator/nee.py) and ignored here;
-    visibility results are identical either way.
+    `t_max` is accepted for interface parity with the other intersectors
+    (a search-window performance hint, integrator/nee.py) and ignored
+    here; visibility results are identical either way.
     """
     num_rays = o.shape[0]
     depth = wkd.max_depth + 2

@@ -12,12 +12,12 @@ from __future__ import annotations
 from typing import Iterable
 
 import jax.numpy as jnp
-from flax import struct
 
+from isaklm_raytracer_tpu import pytree
 from isaklm_raytracer_tpu.math import sampling, transforms
 
 
-@struct.dataclass
+@pytree.dataclass
 class Camera:
     """Pose + optics (reference camera.cuh:15-26)."""
 

@@ -2,8 +2,8 @@
 
 The reference displays the tonemapped running average in a GLFW window every
 frame and restarts accumulation on keyboard input (main.cu:62-94,114-155;
-camera_movement, camera.cuh:28-100). A TPU pod has no window system, so the
-equivalent surface here is the terminal: each frame of the
+camera_movement, camera.cuh:28-100). A headless accelerator host has no
+window system, so the equivalent surface here is the terminal: each frame of the
 InteractiveSession is drawn with 24-bit ANSI half-block cells (one glyph =
 two vertically stacked pixels), and WASD/arrow keys drive the same camera
 semantics, resetting accumulation exactly like the reference.

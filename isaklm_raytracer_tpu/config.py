@@ -46,9 +46,11 @@ class RenderConfig:
     rr_start_bounce: int = 0
     t_epsilon: float = 1e-5
     # Wavefront rays per inner launch: the image is processed in fixed-size
-    # ray chunks via lax.map, so the compiled program (and its compile time /
-    # VMEM footprint) is independent of resolution. 0 disables chunking.
-    ray_chunk: int = 16384
+    # ray chunks via lax.map, which bounds the live per-ray state of one
+    # chunk. 0 = the whole wavefront in one launch per trace call, fastest
+    # on the GPU at both measured sizes (PERF.md, ray_chunk sweep); a chunk
+    # caps memory for renders too large for the card.
+    ray_chunk: int = 0
     # Smallest compacted adaptive wavefront (integrator.render.compact_bucket):
     # the launch shrinks down this far as pixels converge. Lower = closer to
     # the reference's per-thread skip ideal (path_tracing.cuh:347-379); the

@@ -1,12 +1,12 @@
 """Multi-chip / multi-host scaling via jax.sharding + shard_map.
 
 The reference's only parallelism is one CUDA grid on one GPU
-(render.cuh:64-65); scaling here is TPU-native (SURVEY.md section 2.3):
+(render.cuh:64-65); scaling here spans device meshes (SURVEY.md section 2.3):
 
   - a 2-axis device mesh ("tile", "sample"): pixels sharded over "tile",
     independent sample streams over "sample" (spp-parallel); geometry,
     KD tree and materials replicated (small scenes) -- the layout maps
-    image reduction onto ICI psum over "sample" and keeps the per-chip
+    image reduction onto a psum over "sample" and keeps the per-chip
     wavefront purely local;
   - rendering: each device traces its pixel chunk with keys derived from
     GLOBAL pixel ids, so N-chip output == 1-chip output exactly (modulo the
@@ -178,7 +178,7 @@ def unshard_gbuffer(gbuffer: GBuffer, config: RenderConfig) -> GBuffer:
 def _sharded_step_fn(config: RenderConfig, mesh: Mesh, adaptive: bool):
     """Jitted sharded uniform progressive step (the multi-chip render_step):
     every device renders its pixel-tile chunk (masked by per-pixel adaptive
-    state), sample-axis streams are averaged with ONE pmean on ICI, and the
+    state), sample-axis streams are averaged with ONE pmean, and the
     tile-sharded G-buffer accumulates fully locally. Bit-identical per pixel
     to the single-device step (global-pixel-keyed RNG, math/rng.py)."""
     num_sample = mesh.shape["sample"]
@@ -472,7 +472,7 @@ def sharded_value_and_grad_fn(
 
     `decorrelate=True` switches the GRADIENT (the reported loss is unchanged)
     to the dual-buffer estimator of the inverse-rendering literature: the MSE
-    residual is taken from the NEIGHBORING sample stream (one ICI ppermute
+    residual is taken from the NEIGHBORING sample stream (one ppermute
     hop over the "sample" axis) while the derivative flows through the local
     stream, so E[(R_a - T) * dR_b] = (E[R] - T) * dE[R] -- the plain one-
     sample estimator's E[R * dR] term is biased by Cov(R, dR), which at low
@@ -515,7 +515,7 @@ def sharded_value_and_grad_fn(
             if not decorrelate:
                 return mse, mse
             # Dual-buffer gradient: residual from stream s+1 (detached, one
-            # ppermute hop on ICI), derivative through stream s. grad of
+            # ppermute hop), derivative through stream s. grad of
             # `pseudo` is 2*(R_{s+1}-T) * dR_s -- unbiased for d/dtheta of
             # ||E[R]-T||^2 because the two streams are independent.
             num_sample = mesh.shape["sample"]
@@ -536,10 +536,8 @@ def sharded_value_and_grad_fn(
         # Cross-device reduction: tile-partial losses sum; gradients of the
         # replicated params all-reduce over both axes. The psum sits inside
         # the jitted step after the local backward, which is what LETS XLA
-        # overlap it with remaining backward work on TPU; the collective's
-        # critical-path cost is measured by scripts/overlap_probe.py
-        # (BASELINE.md: ~18% un-overlapped on the CPU mesh, whose
-        # collectives are synchronous memcpys -- the upper bound).
+        # overlap it with remaining backward work; the collective's
+        # critical-path cost is measured by scripts/overlap_probe.py.
         # Both loss and
         # grads divide by the sample-axis size so the optimized objective is
         # the MEAN over sample streams -- summing grads but averaging the

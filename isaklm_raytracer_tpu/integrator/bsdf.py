@@ -3,7 +3,7 @@
 Re-derivation of the reference's divergent `get_scattered_light`
 (path_tracing.cuh:151-219) as branch-free masked arithmetic: all four lobes
 (metallic / specular / transmission / diffuse) are evaluated for every lane
-and combined with `jnp.where` selects -- the TPU-native equivalent of SIMT
+and combined with `jnp.where` selects -- the wavefront equivalent of SIMT
 divergence. Semantics preserved exactly:
 
   - metallic when extinction > 0: conductor Fresnel x albedo x
@@ -26,13 +26,13 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
+from isaklm_raytracer_tpu import pytree
 from isaklm_raytracer_tpu.accel.traverse import HitAttributes
 from isaklm_raytracer_tpu.math import sampling
 
 
-@struct.dataclass
+@pytree.dataclass
 class ScatterSample:
     """Vectorized Scattering_Event (path_tracing.cuh:27-32)."""
 

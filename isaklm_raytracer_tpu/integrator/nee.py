@@ -55,9 +55,8 @@ def sample_direct_light(
     # (sitting at |to_light|) is the nearest hit, so hits beyond the light
     # can never change the verdict -- if the true nearest lies beyond the
     # window the intersector may report a miss, and `idx == light_idx` is
-    # false either way. The Pallas blk kernel seeds its per-ray best with
-    # this bound and skips every block behind it (big cull win for bounce-
-    # origin shadow rays); other intersectors ignore the hint. The 0.1%
+    # false either way. An intersector may use the bound to skip everything
+    # behind the light; the KD intersectors ignore the hint today. The 0.1%
     # slack covers f32 plane-hit error so the light itself is never culled.
     t_light = jnp.sqrt(jnp.sum(to_light * to_light, axis=-1))
     window = t_light * 1.001 + 1e-3

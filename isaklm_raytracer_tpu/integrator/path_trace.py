@@ -1,8 +1,8 @@
 """Wavefront path tracing: a bounded `lax.scan` over bounces with masks.
 
-TPU-native re-derivation of the reference megakernel loop `trace_path`
+Wavefront re-derivation of the reference megakernel loop `trace_path`
 (path_tracing.cuh:268-325). The reference runs an unbounded per-thread
-`while` with divergent control flow; on TPU all lanes step through the same
+`while` with divergent control flow; here all lanes step through the same
 bounded bounce loop with an active mask -- Russian roulette kills lanes
 exactly as the reference does (path_tracing.cuh:309-318), so with a
 sufficiently high static cap the estimators agree (RR reweighting keeps the
@@ -23,7 +23,7 @@ pixel index (see integrator.render.ray_keys); per-bounce variates come
 from the counter-based sampler math.rng (stream = bounce) -- so the
 sample sequence of a pixel is a pure function of (seed, sample index,
 pixel id), independent of how rays are sharded across devices or reordered
-by compaction. This is the TPU-native replacement for the reference's
+by compaction. This is the stateless replacement for the reference's
 per-pixel mutable hash state (path_tracing.cuh:34-43, screen.cuh:34-45);
 jax.random threefry was measured ~15x more expensive here.
 """

@@ -27,22 +27,18 @@ from isaklm_raytracer_tpu.scene.types import GBuffer, Scene
 
 
 def make_trace_fn(scene: Scene, config: RenderConfig):
-    """Pick the intersector, in descending preference: Pallas cluster-BVH
-    packet kernel (production TPU path), batched lockstep KD traversal
-    (pure XLA -- CPU fallback / multi-chip dryrun), vmapped scalar KD walk,
-    brute-force oracle. All share trace(o, d, active=None) -> (t, idx, hit)."""
-    backend = jax.default_backend()
-    # Mosaic (pltpu) kernels lower only on TPU; any other accelerator falls
-    # through to the pure-XLA wavefront path that works everywhere.
-    if scene.cbvh is not None and backend == "tpu":
-        import os
-
-        kernel = _pick_cluster_kernel(scene.cbvh)
-        packet = int(os.environ.get("ISAKLM_PACKET", "0")) or None
-        if packet:
-            kernel = functools.partial(kernel, packet=packet)
-        return functools.partial(kernel, scene.cbvh, t_eps=config.t_epsilon)
+    """Pick the intersector, in descending preference: on a GPU the fused
+    KD-walk kernel (accel.kd_kernel), elsewhere the batched lockstep KD
+    walk in plain XLA (accel.wavefront), then the vmapped scalar KD walk,
+    then the brute-force oracle when no KD tree was built (cli --no-kd).
+    All share trace(o, d, active=None, t_max=None) -> (t, idx, hit)."""
     if scene.wkd is not None:
+        if jax.default_backend() == "gpu":
+            from isaklm_raytracer_tpu.accel.kd_kernel import nearest_hit_kd_kernel
+
+            return functools.partial(
+                nearest_hit_kd_kernel, scene.wkd, t_eps=config.t_epsilon
+            )
         from isaklm_raytracer_tpu.accel.wavefront import nearest_hit_wavefront
 
         return functools.partial(
@@ -57,121 +53,6 @@ def make_trace_fn(scene: Scene, config: RenderConfig):
     return functools.partial(
         nearest_hit_brute, vertices=scene.vertices, t_eps=config.t_epsilon
     )
-
-
-_INTERSECTOR_NAMES = ("flat", "flat_mxu", "queue", "hbm", "blk", "blk_mxu")
-
-
-def intersector_name(cbvh) -> str:
-    """Which Pallas variant _pick_cluster_kernel selects (bench provenance).
-
-    ISAKLM_INTERSECTOR overrides the auto choice: one of flat, flat_mxu,
-    queue, hbm, blk, blk_mxu (experimentation / sweeps). Of these only
-    flat, queue and blk are ever auto-selected for scenes prepare_scene
-    produces; hbm (the v2 oct kernel) and the mxu variants are kept as
-    manual-override fallbacks / documented negative results (BASELINE.md).
-    The override is validated here (name AND table availability) so a typo
-    or a missing block table fails with a clear message at selection time
-    instead of an opaque KeyError/AssertionError inside the kernel."""
-    import os
-
-    from isaklm_raytracer_tpu.kernels.intersect import (
-        FLAT_CLUSTER_LIMIT,
-        VMEM_TABLE_LIMIT,
-    )
-
-    override = os.environ.get("ISAKLM_INTERSECTOR", "auto")
-    if override != "auto":
-        if override not in _INTERSECTOR_NAMES:
-            raise ValueError(
-                f"ISAKLM_INTERSECTOR={override!r}: unknown intersector "
-                f"(expected one of {_INTERSECTOR_NAMES} or 'auto')"
-            )
-        needs = {
-            "blk": "blk_const", "blk_mxu": "mxu_const",
-            "flat_mxu": "mxu_tiles",
-        }.get(override)
-        if needs is not None and getattr(cbvh, needs) is None:
-            raise ValueError(
-                f"ISAKLM_INTERSECTOR={override!r} needs cbvh.{needs}; this "
-                "scene was prepared without that table (see "
-                "accel.cluster.with_blocks / with_mxu_blocks / with_mxu_tiles)"
-            )
-        return override
-    real_c = max(1, -(-cbvh.num_triangles // 128))
-    if real_c <= FLAT_CLUSTER_LIMIT:
-        return "flat"
-    if cbvh.vmem_bytes <= VMEM_TABLE_LIMIT:
-        return "queue"
-    # blk (v3) beats the MXU variant at hero scale: 1.35 vs 0.94 M rays/s
-    # (scripts/blk_sweep.py, BASELINE.md) -- the per-cluster matmuls are
-    # too small to pay for their 2x DMA volume and MXU issue latency.
-    if cbvh.blk_const is not None:
-        return "blk"
-    if cbvh.mxu_const is not None:
-        return "blk_mxu"
-    return "hbm"
-
-
-def blk_sort_mode() -> str:
-    """Ray ordering for the blk intersector: "morton" (default; the
-    origin/direction Morton key) or "block" (exact first-needed-block
-    binning via kernels.intersect.first_block_keys -- kept as a DOCUMENTED
-    NEGATIVE result: measured no better on bounce rays and 4x worse on
-    coherent beams, BASELINE.md round 5). Override with ISAKLM_BLK_SORT."""
-    import os
-
-    mode = os.environ.get("ISAKLM_BLK_SORT", "morton")
-    if mode not in ("block", "morton"):
-        raise ValueError(
-            f"ISAKLM_BLK_SORT={mode!r}: expected 'block' or 'morton'"
-        )
-    return mode
-
-
-def blk_per_ray(cbvh) -> bool:
-    """Whether the blk intersector runs in per-ray-early-termination mode
-    (kernels.intersect._blk_kernel per_ray=True -- the round-5 incoherent
-    ray path). Default on whenever the (packet x NBp) entry matrix fits
-    the kernel's VMEM budget; ISAKLM_BLK_PER_RAY=0/1 overrides."""
-    import os
-
-    override = os.environ.get("ISAKLM_BLK_PER_RAY")
-    if override is not None:
-        return override not in ("0", "false", "off")
-    packet = int(os.environ.get("ISAKLM_PACKET", "0")) or BLK_PACKET
-    nbp = cbvh.blk_bbox_t.shape[1] if cbvh.blk_bbox_t is not None else 0
-    return 0 < packet * nbp * 4 <= 6 * 1024 * 1024
-
-
-# Production packet size for the blk path. Round-5 sweep: under per-ray
-# termination the kernel is compute-bound on cluster intersects, so the
-# smaller packet's narrower (B, 128) tiles beat the larger packet's
-# better visit sharing (hero integrator 2.38 M rays/s at 128 vs 2.24 at
-# 256 with branch-64 blocks; the round-4 global-tmax kernel preferred
-# 256). ISAKLM_PACKET overrides (make_trace_fn applies it on top).
-BLK_PACKET = 128
-
-
-def _pick_cluster_kernel(cbvh):
-    import functools as ft
-
-    from isaklm_raytracer_tpu.kernels import intersect as ki
-
-    name = intersector_name(cbvh)
-    return {
-        "flat": ki.nearest_hit_cluster_flat,
-        "flat_mxu": ki.nearest_hit_cluster_flat_mxu,
-        "queue": ki.nearest_hit_cluster,
-        "hbm": ki.nearest_hit_cluster_hbm,
-        "blk": ft.partial(
-            ki.nearest_hit_cluster_blk,
-            sort_rays={"block": "block", "morton": True}[blk_sort_mode()],
-            per_ray=blk_per_ray(cbvh),
-            packet=BLK_PACKET,
-        ),
-        "blk_mxu": ft.partial(ki.nearest_hit_cluster_blk, mxu=True),
-    }[name]
 
 
 def pixel_coords(config: RenderConfig):
@@ -227,9 +108,9 @@ def render_sample(
 
     chunk = config.ray_chunk
     if chunk and num_rays > chunk:
-        # Fixed-size inner launches: one compiled chunk program regardless of
-        # resolution, sequenced by lax.map (the TPU analog of the reference's
-        # fixed 20x45 grid of 3x3-pixel cells, render.cuh:64-65).
+        # Fixed-size inner launches sequenced by lax.map: bounds the live
+        # per-ray state (the analog of the reference's fixed 20x45 grid of
+        # 3x3-pixel cells, render.cuh:64-65).
         num_chunks = -(-num_rays // chunk)
         padded = num_chunks * chunk
         ids = jnp.concatenate(
@@ -310,10 +191,10 @@ def make_compact_step_fn(config: RenderConfig, bucket: int):
     ids into a fixed `bucket`-sized wavefront, render ONLY those, scatter-add
     back into the G-buffer.
 
-    This is the TPU re-architecture of the reference's per-thread skip
-    (path_tracing.cuh:347-379: converged threads simply do not call
-    trace_path): SIMD lanes can't individually skip, so the saving comes
-    from shrinking the launched wavefront instead. Because every variate is
+    This is the wavefront re-architecture of the reference's per-thread
+    skip (path_tracing.cuh:347-379: converged threads simply do not call
+    trace_path): lanes of a batched wavefront can't individually skip, so
+    the saving comes from shrinking the launched wavefront instead. Because every variate is
     a counter-mode function of the GLOBAL pixel id (math/rng.py), the
     compacted render is bit-identical to the full masked render -- tested in
     tests/test_render_e2e.py.
@@ -416,10 +297,10 @@ def make_step_fn(config: RenderConfig):
     """Jitted progressive step (scene, camera, gbuffer, key) -> gbuffer.
 
     Scene and camera are jit ARGUMENTS, not closure constants: closed-over
-    arrays get baked into the compile payload (at hero scale ~400MB of
-    geometry overflows the compile service), and a fresh closure would
-    recompile on every render() call -- the round-1 CLI recompiled ~25s per
-    checkpoint batch because of exactly that. lru_cache keyed on the
+    arrays get baked into the compiled program as constants (at hero scale
+    ~400MB of geometry), and a fresh closure would recompile on every
+    render() call -- an early CLI recompiled on every checkpoint batch
+    because of exactly that. lru_cache keyed on the
     (hashable) config keeps one compiled program per configuration.
     """
 

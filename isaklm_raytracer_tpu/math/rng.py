@@ -1,18 +1,17 @@
 """Counter-mode Threefry-2x32 sampler for the wavefront integrator.
 
 The reference advances one mutable uint32 per pixel with a multiply-xor
-hash (path_tracing.cuh:34-43, seeded in screen.cuh:34-45). The TPU-native
+hash (path_tracing.cuh:34-43, seeded in screen.cuh:34-45). The wavefront
 version must be stateless and order-independent (rays are sharded,
 chunked and masked), so every variate is a pure function of
 
     (sample key, global pixel id, stream, dimension)
 
 where stream = bounce index (or the camera stream) and the (pixel id,
-stream*dim) pair forms the Threefry counter words. Threefry-2x32 is the
-right hash for the VPU: it is adds/xors/rotates only -- 32-bit integer
-MULTIPLIES are emulated multi-op sequences on TPU, which makes both
-per-ray `jax.vmap(fold_in)` key plumbing and PCG-style hashes an order of
-magnitude slower than this counter form at 16K-lane wavefronts.
+stream*dim) pair forms the Threefry counter words. Threefry-2x32 is
+adds/xors/rotates only, and one counter-form hash per variate replaces
+per-ray `jax.vmap(fold_in)` key plumbing, which costs a full key
+derivation per ray before a single variate is drawn.
 
 This is the full 20-round Threefry-2x32 (same algorithm jax.random uses),
 so statistical quality matches jax.random exactly; only the counter

@@ -1,6 +1,6 @@
 """Texture registry: decodes images and packs them into one flat atlas.
 
-TPU-era replacement for make_texture (scene.cuh:25-63): instead of one
+Replacement for make_texture (scene.cuh:25-63): instead of one
 cudaMalloc'd uchar4 buffer per texture, all textures share a single flat
 (P, 3) float32 buffer plus per-texture (offset, width, height) arrays, so a
 texture fetch is one gather from one array regardless of which texture a

@@ -5,7 +5,7 @@ Capability-equivalent of the reference's GLFW window loop (main.cu:114-155
 one sample per step, restarts accumulation on any camera input, and exposes
 the tonemapped running average at every moment. Rendering backends (matplotlib
 window, notebook display, terminal preview) can wrap this; the core loop is
-display-agnostic because interactive display is not a TPU-pod capability
+display-agnostic because interactive display is not an accelerator-host capability
 (SURVEY.md section 2.2: "headless render-to-PNG is the core path").
 """
 

@@ -6,7 +6,7 @@ progress stats via the replicated `gbuffer_progress` reduction (a plain
 np.asarray of the tile-sharded count vector raises on non-addressable
 shards -- the round-4 multihost CLI bug), the collective checkpoint
 gather outside the rank-0 guard, and the final cross-process image
-resolve. gloo CPU collectives stand in for ICI/DCN.
+resolve. gloo CPU collectives stand in for the interconnect.
 
 Launched by tests/test_multihost.py as:
   python scripts/multihost_cli_worker.py <pid> <nprocs> <port> <cli args...>

@@ -5,7 +5,7 @@ without a cluster'): jax.distributed.initialize over a localhost
 coordinator, a global ("tile", "sample") mesh spanning both processes'
 virtual CPU devices, cross-process collectives (the sample-axis pmean and
 the train step's full-mesh gradient psum ride the gloo CPU transport that
-stands in for ICI/DCN), and a process_allgather of the sharded image.
+stands in for the interconnect), and a process_allgather of the sharded image.
 
 Launched by tests/test_multihost.py as:
   python scripts/multihost_worker.py <process_id> <num_processes> <port> <out.json>

@@ -1,7 +1,7 @@
 """Quantify the max_bounces truncation bias (VERDICT round 2, item #7).
 
 The reference's path loop is unbounded -- only Russian roulette terminates
-paths (path_tracing.cuh:279-319). The TPU wavefront loop needs a static
+paths (path_tracing.cuh:279-319). The wavefront loop needs a static
 bound (config.max_bounces, default 24). Because RR reweights survivors,
 the bounded estimator differs from the unbounded one ONLY by truncation of
 paths that survive past the cap: with counter-mode per-(pixel, sample,
@@ -56,7 +56,7 @@ def test_cap_monotone_nondecreasing(mean_luminance_by_cap):
 def test_default_cap_bias_is_small(mean_luminance_by_cap):
     """The default cap (24) must capture nearly all the energy the 2x cap
     finds, even on the glass-dominated worst case; the remaining tail is
-    the documented truncation bias of the TPU formulation."""
+    the documented truncation bias of the wavefront formulation."""
     m = mean_luminance_by_cap
     rel_24 = (m[48] - m[24]) / max(m[48], 1e-9)
     rel_8 = (m[48] - m[8]) / max(m[48], 1e-9)

@@ -3,7 +3,7 @@ SURVEY.md section 4 'distributed tests without a cluster').
 
 Spawns 2 real OS processes, each with 4 virtual CPU devices, joined by
 jax.distributed.initialize over a localhost coordinator with gloo CPU
-collectives standing in for ICI/DCN. The worker
+collectives standing in for the interconnect. The worker
 (scripts/multihost_worker.py) renders over a global ("tile", "sample")
 mesh spanning both processes -- the tile axis crosses the host boundary --
 and asserts the gathered image equals the single-process render, then runs
